@@ -1,4 +1,4 @@
-"""ais_tpu — a TPU-native AIS receiver framework (JAX / XLA / Pallas).
+"""ais_tpu — an AIS receiver framework in JAX / XLA.
 
 A from-scratch rebuild of the capabilities of the reference receiver gr-ais
 (bistromath/gr-ais): RF/IQ ingest -> wideband channelization -> square-and-FFT
@@ -10,7 +10,8 @@ Unlike the reference (a GNU Radio thread-per-block streaming graph), the
 signal chain here is a *batched tensor pipeline* over overlap-save time
 blocks: every DSP stage is a pure function over `(batch, time)` tensors,
 burst synchronization state rides in explicit per-burst records instead of
-stream tags, and the whole front half runs as one jitted XLA program on TPU.
+stream tags, and the whole front half runs as jitted XLA programs on the
+accelerator.
 
 Subpackage map (reference layer -> here):
 

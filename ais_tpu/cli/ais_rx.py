@@ -24,7 +24,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="ais_rx", description="TPU-native AIS receiver (gr-ais capabilities)"
+        prog="ais_rx", description="JAX AIS receiver (gr-ais capabilities)"
     )
     p.add_argument(
         "-s",
@@ -84,6 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     options = build_parser().parse_args(argv)
+    from ais_tpu.core.backend import enable_compile_cache
     from ais_tpu.core.params import DemodConfig
     from ais_tpu.io.sources import FileSource, open_source
     from ais_tpu.pipeline.radio import AisRadio
@@ -106,6 +107,7 @@ def main(argv: list[str] | None = None) -> int:
             file=sys.stderr,
         )
     print(f"Rate is {int(options.rate)}", file=sys.stderr)
+    enable_compile_cache()
     threshold = options.threshold
     if threshold is None:
         threshold = 0.4 if options.demod == "mlse" else 0.9

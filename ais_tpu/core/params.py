@@ -89,19 +89,13 @@ class DemodConfig:
     omega_relative_limit: float = 0.01
     gmsk_bt: float = GMSK_BT
     # Timing recovery implementation:
-    #   "feedforward" — TPU-native tone-phase burst estimator
+    #   "feedforward" — tone-phase burst estimator
     #     (sync/feedforward.py): no sequential state, pure vector math.
     #   "pll" — faithful port of the reference's sequential D'Andrea loop
     #     (sync/timing.py, lib/msk_timing_recovery_cc_impl.cc) as a
-    #     per-burst lax.scan; much slower to compile/run on TPU.
+    #     per-burst lax.scan; much slower to compile and run.
     timing_mode: str = "feedforward"
     ff_seg_len: int = 256          # feedforward tone-phase segment length
-    # Feedforward symbol-extraction formulation: "auto" uses the
-    # gather-free bank-FIR comb on non-CPU backends and the
-    # drift-tracking interpolator bank on CPU; "fir"/"fft"/"bank" force
-    # a formulation anywhere ("fft" is the older transform-domain comb,
-    # kept for cross-checks; see sync/feedforward.py).
-    ff_path: str = "auto"
     # Bit decision path:
     #   "discriminator" — quadrature demod + slicer, the reference chain
     #     (python/ais_demod.py:48-52).
@@ -111,14 +105,6 @@ class DemodConfig:
     #     lower corr_threshold (~0.4) to let weak bursts reach the
     #     decoder.
     demod_mode: str = "discriminator"
-    # Matched-filter formulation for burst detection:
-    #   "auto"   — fused Pallas MXU correlator on non-CPU backends
-    #     (ops/pallas_corr.py, |corr|^2 fused into the same pass), the
-    #     FFT overlap-save pair on CPU (where n log n wins).
-    #   "pallas" / "mxu" / "fft" — force a formulation anywhere ("mxu"
-    #     is the plain-XLA dot form of the same direct correlator).
-    # Env override: AIS_TPU_CORR=pallas|mxu|fft|auto.
-    corr_path: str = "auto"
     # Burst extraction: window of raw samples handed to per-burst timing
     # recovery.  Must cover preamble + flags + max stuffed frame + slack.
     # Max HDLC frame here is 64 bytes payload (python/radio.py:64), i.e.

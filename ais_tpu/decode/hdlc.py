@@ -1,11 +1,11 @@
 """HDLC deframing: flag search, bit-unstuffing, CRC-16 validation.
 
-TPU-native equivalent of GNU Radio's `digital.hdlc_deframer_bp(11, 64)`
+Tensor equivalent of GNU Radio's `digital.hdlc_deframer_bp(11, 64)`
 (reference: python/radio.py:64).  The reference runs this as a sequential
 per-bit state machine on a stream thread; here the demodulator hands us a
 *bounded per-burst bit tensor* (bursts are <= a few hundred symbols), so
-deframing becomes small-array vectorized ops on the host — the TPU keeps
-the sample-rate math, the host keeps the byte-rate math.
+deframing becomes small-array vectorized ops on the host — the device
+keeps the sample-rate math, the host keeps the byte-rate math.
 
 Behavioral contract (matching the upstream deframer):
   - frames are delimited by 0x7E flags (bit pattern 0,1,1,1,1,1,1,0 in

@@ -13,7 +13,7 @@ their authored flowgraph across:
 Import semantics are FAITHFUL: the produced config reproduces the
 flowgraph's behavior (PLL timing when `digital_msk_timing_recovery_cc`
 is present, ungated AFC, no CFAR — the reference blocks have none of
-the TPU-native upgrades), and every unmapped non-cosmetic block lands
+this build's upgrades), and every unmapped non-cosmetic block lands
 in `info["warnings"]` rather than being silently dropped.  Long-frame
 deframer bounds (ais.grc runs hdlc_deframer_bp(11, 1000),
 python/ais.grc:1229) scale the burst geometry through

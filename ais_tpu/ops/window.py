@@ -1,11 +1,11 @@
 """Sliding-window maximum via logarithmic shift-doubling.
 
-`lax.reduce_window` with large windows compiles pathologically on the TPU
-backend (it unrolls), so the AGC envelope tracker and the correlator's
-non-max suppression use this instead: a sliding max over a width-w window
+The AGC envelope tracker and the correlator's non-max suppression use
+this in place of `lax.reduce_window` (whether the plain form is as fast
+on the GPU is ROADMAP C7): a sliding max over a width-w window
 decomposes into ceil(log2 w) full-array `maximum` passes, maintaining the
 invariant m_s[i] = max x[i .. i+s-1] and combining spans.  Pure
-elementwise VPU work, O(n log w), compiles in milliseconds.
+elementwise work, O(n log w), compiles in milliseconds.
 """
 
 from __future__ import annotations

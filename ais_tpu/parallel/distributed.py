@@ -67,7 +67,7 @@ class DistributedBlockDecoder:
         self._fn = make_sharded_demod(demod, block_len, self.core_len, self.mesh)
         # Multi-process: the per-call record gather is the ONLY
         # cross-host traffic, so compact it on device before it rides
-        # DCN — the same 8x bit-plane packing the tunnel wire path uses
+        # DCN — the same 8x bit-plane packing the wire path uses
         # (pipeline/wideband.py:pack_wire_records), ~7x smaller than raw
         # BurstRecords.  Sustained rolling-call efficiency lives and
         # dies on this per-call cost (tools/multihost_streaming.py).

@@ -10,8 +10,8 @@ collectives and scales linearly.  The dedup rule (a burst belongs to the
 block whose *core* holds its preamble start) guarantees each packet is
 decoded exactly once across devices.
 
-A second `stream` mesh axis shards independent IQ streams (config 4 of
-BASELINE.json's multi-stream batch).
+A second `stream` mesh axis shards independent IQ streams (many
+captures decoded in one batch).
 """
 
 from __future__ import annotations
@@ -41,14 +41,6 @@ def make_sharded_demod(
         mesh=mesh,
         in_specs=P(time_axis),
         out_specs=P(time_axis),
-        # pallas_call outputs can't declare varying-across-mesh types, so
-        # the vma check rejects the TPU kernel path.  The hatch is
-        # unconditional (jit caches per-callable, and the kernel path is
-        # chosen inside the traced fn), which also disables the spec
-        # check on non-pallas backends — the bit-identity and packet-set
-        # equality tests in test_parallel.py are the guard for ALL
-        # backends (advisor r4).
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -68,11 +60,11 @@ def make_halo_exchange_demod(
     The default path (`make_sharded_demod`) duplicates each block's halo
     at framing time: simple, collective-free, but ships
     `block_len / core_len` (~1.4x) more bytes to the devices and stores
-    the duplicates in HBM.  This variant feeds each device only its
+    the duplicates in device memory.  This variant feeds each device only its
     disjoint core samples; each shard rebuilds its blocks from the local
     contiguous stream plus ONE ring `ppermute` carrying the first `halo`
-    samples of the next shard (ICI traffic: halo/core ~ 3% of the
-    ingest).  The trailing shard's last block wraps to shard 0's head —
+    samples of the next shard (inter-device traffic: halo/core ~ 3% of
+    the ingest).  The trailing shard's last block wraps to shard 0's head —
     callers pad the stream tail with noise/zeros, which the overlap-save
     ownership rule ignores anyway.
 
@@ -107,7 +99,6 @@ def make_halo_exchange_demod(
 
     sharded = shard_map(
         fn, mesh=mesh, in_specs=P(time_axis), out_specs=P(time_axis),
-        check_vma=False,  # see make_sharded_demod
     )
     return jax.jit(sharded)
 
@@ -119,13 +110,12 @@ def make_sharded_wire_pipeline(
     fmt: str = "cr1",
     time_axis: str = "time",
 ):
-    """Shard the BENCHED wire program — wire-byte decode -> channelize ->
-    demod -> d2h record pack — over the mesh's `time` axis (VERDICT r4
-    item 7: the dryrun previously lowering-checked only the demod half).
+    """Shard the benched wire program — wire-byte decode -> channelize ->
+    demod -> d2h record pack — over the mesh's `time` axis.
 
     Each shard owns one full overlap-save wire step: raw span
-    [d*step_raw, d*step_raw + n_in), exactly the fan's step contract
-    (pipeline/multiproc.py), so the program needs zero collectives —
+    [d*step_raw, d*step_raw + n_in), the same step contract as
+    `WidebandReceiver.submit_wire`, so the program needs zero collectives —
     halos are duplicated at framing time and the core-ownership rule
     partitions the packet set.  Per-shard mixer phases ride in as a
     sharded (n_shards, n_offsets) array (phase continuity is a function
@@ -140,24 +130,16 @@ def make_sharded_wire_pipeline(
     equality vs the single-device stream is asserted in
     tests/test_parallel.py.
     """
-    from ais_tpu.ops.convert import (
-        iq_from_bytes_ci8,
-        iq_from_bytes_cr1,
-    )
     from ais_tpu.pipeline.wideband import (
         make_wideband_fns,
         pack_wire_compact,
         pack_wire_flat,
+        wire_converter,
     )
 
     chan, demod = make_wideband_fns(wcfg, n_in)
     fftlen = wcfg.demod.fftlen
-    if fmt == "cr1":
-        conv = lambda raw: iq_from_bytes_cr1(raw, n_in)  # noqa: E731
-    elif fmt == "ci8":
-        conv = iq_from_bytes_ci8
-    else:
-        raise ValueError(f"sharded wire pipeline supports cr1/ci8, not {fmt}")
+    conv, _ = wire_converter(fmt, n_in)
 
     def local(raw, ph, car, hf):
         # shard_map hands each shard its (1, ...) block of the sharded
@@ -175,7 +157,6 @@ def make_sharded_wire_pipeline(
         mesh=mesh,
         in_specs=(P(time_axis), P(time_axis), P(), P()),
         out_specs=P(time_axis),
-        check_vma=False,  # see make_sharded_demod
     )
     return jax.jit(sharded)
 
@@ -196,6 +177,5 @@ def make_sharded_stream_demod(
         mesh=mesh,
         in_specs=P(stream_axis, time_axis),
         out_specs=P(stream_axis, time_axis),
-        check_vma=False,  # see make_sharded_demod
     )
     return jax.jit(fn)

@@ -2,7 +2,7 @@
 
 The stream->message boundary of the reference (hdlc_deframer's PDU output
 feeding pdu_to_nmea, reference: python/radio.py:64-73) maps here to the
-device->host boundary: the TPU produces fixed-size per-burst bit tensors;
+device->host boundary: the device produces fixed-size per-burst bit tensors;
 this module deframes them, deduplicates packets that were detected twice
 (e.g. a correlator double-fire on one burst), and renders AIVDM sentences.
 """

@@ -246,7 +246,7 @@ class AisRadio:
 
         The reference equivalent is `tb.run()` handing control to the GR
         scheduler (apps/ais_rx:19); here the host loop pulls chunks and
-        the TPU pipeline drains them.
+        the device pipeline drains them.
         """
         self._source = source
         for chunk in source.chunks(chunk_len):

@@ -106,7 +106,7 @@ def host_iq_from_wire(raw_u8: np.ndarray, fmt: str) -> np.ndarray:
     raise ValueError(f"unsupported wire format {fmt!r}")
 
 
-def _host_channelize_span(
+def host_channelize_span(
     iq: np.ndarray,
     taps: np.ndarray,
     offset_hz: float,
@@ -117,12 +117,13 @@ def _host_channelize_span(
     """Mix `iq` down by offset_hz (carrier phased at absolute raw index
     `abs_start`, same convention as ops/fir.py:mixer_phase), correlate
     with `taps`, decimate.  out[j] = sum_k taps[k] * mixed[j*decim + k],
-    matching the device channelizer's VALID geometry exactly."""
+    matching the device channelizer's VALID geometry exactly.  Computed
+    in float64 NumPy (complex128 out): the plain reference the device
+    channelizer is compared with."""
     n = np.arange(abs_start, abs_start + iq.size, dtype=np.float64)
-    mixed = (
-        np.asarray(iq, np.complex64)
-        * np.exp(-2j * np.pi * (offset_hz / rate) * n)
-    ).astype(np.complex64)
+    mixed = np.asarray(iq, np.complex128) * np.exp(
+        -2j * np.pi * (offset_hz / rate) * n
+    )
     L = taps.size
     nfft = 1 << int(iq.size + L - 1).bit_length()
     # Correlation via convolution with reversed taps: full[j + L - 1]
@@ -131,28 +132,22 @@ def _host_channelize_span(
         np.fft.fft(mixed, nfft) * np.fft.fft(taps[::-1].astype(np.float64), nfft)
     )
     n_out = (iq.size - L) // decim + 1
-    return full[L - 1 : L - 1 + (n_out - 1) * decim + 1 : decim].astype(
-        np.complex64
-    )
+    return full[L - 1 : L - 1 + (n_out - 1) * decim + 1 : decim]
 
 
 def _recover_demod(demod_cfg, block_len: int, core_len: int, n_detected: int):
-    """The escalated-table re-demod callable (compiled for CPU)."""
+    """The escalated-table re-demod callable (compiled for CPU).
+
+    Recovery runs under jax.default_device(cpu) while
+    jax.default_backend() may report the accelerator; the burst demod
+    has one formulation on every platform, so it compiles for the CPU
+    unchanged."""
     from ais_tpu.pipeline.receiver import jit_burst_demod
 
     k2 = _MIN_RECOVER_K
     while k2 < n_detected and k2 < _MAX_RECOVER_K:
         k2 *= 2
-    # corr_path pinned to "fft": recovery executes under
-    # jax.default_device(cpu) (below) while jax.default_backend() still
-    # reports the accelerator, so an "auto"/"pallas" correlator would
-    # trace a pallas_call and die in the CPU lowering ("Only interpret
-    # mode is supported on CPU backend") — which silently broke EVERY
-    # overflow recovery on the TPU backend until the round-5 96-block
-    # bench run tripped it.
-    cfg2 = dataclasses.replace(
-        demod_cfg, max_bursts_per_block=k2, corr_path="fft"
-    )
+    cfg2 = dataclasses.replace(demod_cfg, max_bursts_per_block=k2)
     return jit_burst_demod(cfg2, block_len, core_len), cfg2
 
 
@@ -162,6 +157,7 @@ def recover_overflow_packets(
     cfg,
     overflowed,
     dedupers,
+    stats: dict | None = None,
 ) -> list:
     """Re-demodulate overflowed blocks with a larger burst table.
 
@@ -169,8 +165,9 @@ def recover_overflow_packets(
     abs_raw_start: absolute raw index of iq_raw[0]; cfg: WidebandConfig;
     overflowed: iterable of (channel, block, n_detected); dedupers: the
     receiver's per-channel PacketDeduper list (already primed with the
-    first pass, so duplicates self-suppress).  Returns newly recovered
-    DecodedPackets.
+    first pass, so duplicates self-suppress); stats: optional counters
+    ("recovered_blocks", "unrecovered_blocks") incremented per block.
+    Returns newly recovered DecodedPackets.
     """
     import jax
     import jax.numpy as jnp
@@ -186,16 +183,23 @@ def recover_overflow_packets(
     )
     block_len = cfg.block_len
     core_len = cfg.core_len
+    overflowed = list(overflowed)
     try:
         cpu = jax.devices("cpu")[0]
     except RuntimeError:
-        log.warning("overflow recovery skipped: no CPU backend available")
+        log.error(
+            "overflow recovery impossible: no CPU backend available; "
+            "%d overflowed block(s) keep only their first-pass packets",
+            len(overflowed),
+        )
+        if stats is not None:
+            stats["unrecovered_blocks"] += len(overflowed)
         return []
     packets = []
     for c, b, n_det in overflowed:
         i0 = b * core_len * cfg.decimation
         span = iq_raw[i0 : i0 + (block_len - 1) * cfg.decimation + taps.size]
-        chan = _host_channelize_span(
+        chan = host_channelize_span(
             span,
             taps,
             cfg.offsets_hz[c],
@@ -227,4 +231,6 @@ def recover_overflow_packets(
             c, b, cfg2.max_bursts_per_block, len(recovered),
         )
         packets.extend(recovered)
+        if stats is not None:
+            stats["recovered_blocks"] += 1
     return packets

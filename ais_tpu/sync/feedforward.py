@@ -1,6 +1,6 @@
 """Feedforward (non-iterative) burst timing recovery via the MSK tone pair.
 
-A TPU-first alternative to the reference's sequential D'Andrea PLL
+A vectorized alternative to the reference's sequential D'Andrea PLL
 (lib/msk_timing_recovery_cc_impl.cc:138-202; our faithful port is
 `sync/timing.py`).  Squaring an MSK/GMSK signal produces two spectral
 tones at +-Rs/2 (the same physics the reference's freqest exploits,
@@ -32,7 +32,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ais_tpu.ops.framing import frame_overlap_big
 from ais_tpu.ops.interp import DELAY, NSTEPS, NTAPS, interp_taps
 
 
@@ -173,142 +172,6 @@ def estimate_timing(
     return base, intercept, slope
 
 
-def feedforward_symbols_fft(
-    burst: jax.Array,
-    sps: float,
-    n_symbols: int,
-    bt: float = 0.4,
-    seg_len: int = 256,
-    min_weight_frac: float = 0.25,
-):
-    """Gather-free symbol extraction: FFT fractional delay + strided comb.
-
-    The bank-interpolation path (`feedforward_symbols`) issues one 8-tap
-    gather per symbol, which serializes on the TPU backend.  Here the
-    burst is delayed by the (single) fractional timing offset in the
-    frequency domain — ideal sinc interpolation, one batched FFT/IFFT —
-    and symbols are read off a stride-`sps` comb chosen from a handful of
-    static integer offsets by a one-hot sum.  Assumes integer sps and
-    negligible clock drift across one burst (<~100 ppm; the AIS spec
-    allows 50).  The exact drift-tracking path remains the default on CPU.
-    """
-    length = burst.shape[-1]
-    sps_i = int(round(sps))
-    base, intercept, _ = estimate_timing(
-        burst, sps, bt=bt, seg_len=seg_len, min_weight_frac=min_weight_frac
-    )
-    tau = base + intercept
-    # Clamp into the candidate comb range below: under extreme drift or
-    # noise |intercept| can push floor(tau) outside it, and an unclamped
-    # one-hot would silently select *no* comb (all-zero symbols with
-    # valid=True).  Clamped, a bad estimate degrades to a CRC failure
-    # instead of an invisible zero burst.
-    r0 = DELAY
-    n_cand = sps_i + 2
-    tau = jnp.clip(tau, float(r0), float(r0 + n_cand) - 1e-3)
-    R = jnp.floor(tau).astype(jnp.int32)
-    mu = tau - R.astype(jnp.float32)
-    nfft = 1 << (length - 1).bit_length()
-    F = jnp.fft.fft(burst, nfft)
-    kf = jnp.asarray(np.fft.fftfreq(nfft).astype(np.float32)) * nfft
-    ph = (2.0 * np.pi / nfft) * kf * mu
-    delayed = jnp.fft.ifft(F * jax.lax.complex(jnp.cos(ph), jnp.sin(ph)))[:length]
-
-    # Candidate integer offsets: base lies in [DELAY+1, DELAY+1+sps), and
-    # intercept can push floor(tau) one either side.
-    views = []
-    for c in range(n_cand):
-        start = r0 + c
-        v = delayed[start : start + sps_i * n_symbols]
-        views.append(v.reshape(n_symbols, sps_i)[:, 0])
-    views = jnp.stack(views)                      # (n_cand, n_symbols)
-    oh = (R == (r0 + jnp.arange(n_cand, dtype=jnp.int32))).astype(jnp.float32)
-    symbols = jnp.sum(views * oh[:, None], axis=0)
-    kpos = R.astype(jnp.float32) + jnp.arange(n_symbols, dtype=jnp.float32) * sps_i
-    valid = (kpos >= 0) & (kpos + sps_i + 8 <= length)
-    return symbols.astype(jnp.complex64), valid
-
-
-def feedforward_symbols_fir(
-    burst: jax.Array,
-    sps: float,
-    n_symbols: int,
-    bt: float = 0.4,
-    seg_len: int = 256,
-    min_weight_frac: float = 0.25,
-):
-    """Gather-free symbol extraction: 8-tap bank-row FIR + strided comb.
-
-    Same single-delay-per-burst assumption as `feedforward_symbols_fft`
-    (intra-burst drift negligible; AIS allows 50 ppm and both paths are
-    tested at that), but the fractional delay is applied with the SAME
-    8-tap Blackman-sinc interpolation bank the drift-tracking path uses,
-    and the whole extraction collapses into ONE per-burst FIR:
-
-        symbols[k] = sum_j g[j] * burst[sps*k + j],   len(g) = sps+9
-
-    where g is the (outer-product) convolution of the bank row picked by
-    the fractional phase mu (one-hot over the bank's 129 phases — an MXU
-    contraction, no gather) with the one-hot of the integer comb offset.
-    The strided reads become one gather-free `frame_overlap_big` framing
-    (core = sps) plus a single small contraction — two passes over the
-    burst instead of the FFT path's zero-padded 2^k FFT/IFFT pair
-    (8192-pt for the default 4608-sample window) or a chain of shifted
-    slice-adds XLA won't fuse (tools/tpu_symbols_probe.py).  Accuracy is
-    identical in kind: `_calibrate` measures the optimum sampling point
-    *with this bank*, so the bank's group delay is baked into `delta`.
-    """
-    length = burst.shape[-1]
-    sps_i = int(round(sps))
-    base, intercept, _ = estimate_timing(
-        burst, sps, bt=bt, seg_len=seg_len, min_weight_frac=min_weight_frac
-    )
-    tau = base + intercept
-    # Same clamp as the FFT path: a wild estimate degrades to a CRC
-    # failure, never a silent all-zero burst.
-    r0 = DELAY
-    n_cand = sps_i + 2
-    tau = jnp.clip(tau, float(r0), float(r0 + n_cand) - 1e-3)
-    R = jnp.floor(tau).astype(jnp.int32)
-    mu = tau - R.astype(jnp.float32)
-
-    nz = n_cand - 1 + sps_i * n_symbols  # last comb sample we ever read
-    if nz > length - NTAPS + 1:
-        raise ValueError(
-            f"burst window {length} too short for {n_symbols} symbols "
-            f"at sps {sps_i} (needs {nz + NTAPS - 1})"
-        )
-    bank = jnp.asarray(interp_taps())  # (NSTEPS+1, NTAPS)
-    imu = jnp.clip(jnp.round(mu * NSTEPS).astype(jnp.int32), 0, NSTEPS)
-    oh_mu = (
-        imu == jnp.arange(NSTEPS + 1, dtype=jnp.int32)
-    ).astype(jnp.float32)
-    row = oh_mu @ bank  # (NTAPS,)
-
-    # Fuse interpolation row and comb offset: symbols[k] = z[c + sps*k]
-    # with z[i] = sum_t row[t]*burst[i+t] and c = R - DELAY, i.e. one
-    # J-tap kernel g[j] = sum_{t+c'=j} row[t]*oh_c[c'].
-    oh_c = (
-        (R - r0) == jnp.arange(n_cand, dtype=jnp.int32)
-    ).astype(jnp.float32)
-    J = n_cand - 1 + NTAPS
-    g = jnp.zeros((J,), jnp.float32)
-    for c in range(n_cand):
-        g = g + oh_c[c] * jnp.pad(row, (c, J - NTAPS - c))
-
-    # Gather-free strided frames: frames[m, j] = burst[sps*m + j].
-    nfr = length - (length % sps_i)
-    fre = frame_overlap_big(jnp.real(burst)[:nfr], sps_i, J - sps_i)
-    fim = frame_overlap_big(jnp.imag(burst)[:nfr], sps_i, J - sps_i)
-    symbols = jax.lax.complex(
-        jnp.einsum("mj,j->m", fre[:n_symbols], g),
-        jnp.einsum("mj,j->m", fim[:n_symbols], g),
-    )
-    kpos = R.astype(jnp.float32) + jnp.arange(n_symbols, dtype=jnp.float32) * sps_i
-    valid = (kpos >= 0) & (kpos + sps_i + 8 <= length)
-    return symbols.astype(jnp.complex64), valid
-
-
 def feedforward_symbols(
     burst: jax.Array,
     sps: float,
@@ -316,30 +179,12 @@ def feedforward_symbols(
     bt: float = 0.4,
     seg_len: int = 256,
     min_weight_frac: float = 0.25,
-    path: str = "auto",
 ):
     """Recover `n_symbols` symbol-rate samples from one burst window.
 
     Returns (symbols complex64 (n_symbols,), valid bool (n_symbols,)).
     Drop-in replacement for the PLL's outputs (same downstream demod).
-    `path`: "auto" picks the gather-free bank-FIR comb on non-CPU
-    backends when sps is integral (see feedforward_symbols_fir), the
-    drift-tracking bank interpolation otherwise; "fir"/"fft"/"bank"
-    force a formulation ("fft" is the older transform-domain comb,
-    kept selectable for cross-checks).
     """
-    gather_free = {
-        "auto": jax.default_backend() != "cpu",
-        "fft": True,
-        "fir": True,
-        "bank": False,
-    }[path]
-    if gather_free and abs(sps - round(sps)) < 1e-9:
-        fn = feedforward_symbols_fft if path == "fft" else feedforward_symbols_fir
-        return fn(
-            burst, sps, n_symbols, bt=bt, seg_len=seg_len,
-            min_weight_frac=min_weight_frac,
-        )
     length = burst.shape[-1]
     base, intercept, slope = estimate_timing(
         burst, sps, bt=bt, seg_len=seg_len, min_weight_frac=min_weight_frac

@@ -137,14 +137,9 @@ def mlse_levels(
     fr, fi = frames.real.astype(jnp.float32), frames.imag.astype(jnp.float32)
     rr = jnp.asarray(trellis.refs_r)  # conj already applied
     ri = jnp.asarray(trellis.refs_i)
-    # corr[k, b] = sum_t frames[k, t] * conj(s_b[t]).  Full-f32 MXU
-    # passes: the default bf16-input pass loses ~8 mantissa bits, which
-    # flips near-tie Viterbi branch decisions — measured 1-4 bit
-    # divergence per packet between TPU and CPU (tools/tpu_mlse_probe.py)
-    # before HIGHEST pinned the primary detection lanes bit-identical
-    # (residual 2-4 bit diffs remain only on duplicate-detection side
-    # lanes, from backend FFT rounding in the per-burst freq/timing
-    # estimators upstream; packet-level decode is backend-identical).
+    # corr[k, b] = sum_t frames[k, t] * conj(s_b[t]) in full float32:
+    # a reduced-precision dot (bf16 inputs, or TF32 on a GPU) loses
+    # mantissa bits and flips near-tie Viterbi branch decisions.
     hi = jax.lax.Precision.HIGHEST
     cr = jnp.dot(fr, rr.T, precision=hi) - jnp.dot(fi, ri.T, precision=hi)
     ci = jnp.dot(fr, ri.T, precision=hi) + jnp.dot(fi, rr.T, precision=hi)

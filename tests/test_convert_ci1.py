@@ -6,8 +6,8 @@ numpy twin); the device decoder is a plain ±1 map — correctness rests on
 the noise shaping placing the quantization noise above the AIS channel
 band.  Reference analogue: source format handling
 (/root/reference/python/radio.py:151-215) — the reference never had a
-sub-8-bit wire; this format exists because the ingest link, not the
-ADC, binds TPU throughput (ARCHITECTURE.md §5).
+sub-8-bit wire; this format exists for ingest links whose bandwidth,
+not the ADC, would bind throughput (WIRE.md).
 """
 
 import numpy as np

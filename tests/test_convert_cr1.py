@@ -5,8 +5,8 @@ encoding the real part of the fs/4-shifted signal with a second-order
 bandpass sigma-delta whose noise-shaping notch covers the AIS channels
 (ops/convert.py:iq_from_bytes_cr1 for the full rationale).  Reference
 analogue: none (the reference ships complex floats between blocks);
-this format exists because the ingest link binds TPU throughput
-(ARCHITECTURE.md §5).
+this format exists for ingest links whose bandwidth would bind
+throughput (WIRE.md).
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Independent-oracle parity corpus (VERDICT round-1 item 2).
+"""Independent-oracle parity corpus.
 
 Every capture here is synthesized by `tests/oracle_modulator.py` — a
 from-spec transmit chain sharing no code with `ais_tpu` (closed-form
@@ -6,7 +6,7 @@ erf GMSK pulse, table-driven CRC, its own HDLC/NRZI) — so a tx/rx
 convention error in the package cannot cancel.  The corpus covers the
 reference's validation scenarios (capture-driven decode,
 python/ais.grc:573) plus impairments: CFO to +-500 Hz, +-50 ppm symbol
-clock through BOTH feedforward formulations, multipath, and Eb/N0 spot
+clock, multipath, and Eb/N0 spot
 checks anchoring the committed BER table (BER.md).
 """
 
@@ -102,15 +102,13 @@ class TestOracleImpairments:
         # not just survive it): estimates quantize to ~23 Hz bins.
         assert abs(got[0].freq_est_hz - cfo) < 60
 
-    @pytest.mark.parametrize("ppm", [-50.0, 50.0])
-    @pytest.mark.parametrize("path", ["bank", "fft", "fir"])
-    def test_symbol_clock_offset(self, pkt, ppm, path):
-        # AIS allows 50 ppm transmitter clock error (ITU-R M.1371); both
-        # the drift-tracking bank path and the TPU FFT-comb formulation
-        # must hold lock across a full packet.
+    @pytest.mark.parametrize("ppm", [-50.0, -25.0, 25.0, 50.0])
+    def test_symbol_clock_offset(self, pkt, ppm):
+        # AIS allows 50 ppm transmitter clock error (ITU-R M.1371); the
+        # drift-tracking feedforward path must hold lock across a full
+        # packet.
         iq = embed(apply_clock_offset(pkt, ppm))
-        rx = BasebandReceiver(demod=DemodConfig(ff_path=path))
-        assert rx.sentences(iq) == [SENTENCE]
+        assert BasebandReceiver().sentences(iq) == [SENTENCE]
 
     def test_two_ray_multipath(self, pkt):
         iq = embed(apply_multipath(pkt, delay=2, gain=0.3j))

@@ -315,3 +315,23 @@ class TestWirePipelineSharded:
             (p.payload, p.abs_sample, p.designator) for p in got
         )
         assert got_set == want_set
+
+    def test_wire_program_ci8_matches_single_device(self, eight_devices):
+        """chip_smoke.py --four-cards at one demod block per shard: the
+        full-load scene in ci8 (the SDR-native format) through the wire
+        program sharded over a 4-device time mesh decodes the packet set
+        the single-device stream decodes, and every sent packet."""
+        import importlib.util
+        import os
+
+        path = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "chip_smoke.py",
+        )
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        single, sharded, parity = smoke.mesh_packet_sets(4, n_blocks=1)
+        assert len(single) > 0
+        assert sharded == single
+        assert parity == {"single": 1.0, "sharded": 1.0}

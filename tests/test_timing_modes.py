@@ -1,4 +1,4 @@
-"""Timing-recovery mode parity: the TPU-native feedforward estimator vs
+"""Timing-recovery mode parity: the feedforward estimator vs
 the faithful PLL port, swept across the impairment corpus.
 
 The reference has exactly one timing recovery (the D'Andrea PLL,

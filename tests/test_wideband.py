@@ -319,39 +319,6 @@ def test_wire_path_ci2_decodes():
     assert [p.nmea for p in got] == [SENTENCE_A, SENTENCE_B]
 
 
-def test_pallas_mode_wire_and_float_paths(monkeypatch):
-    """The Pallas channelizer mode decodes the same scene end-to-end.
-
-    AIS_TPU_CHAN=pallas forces the MXU kernels (interpret mode under the
-    CPU test backend): the float path runs pallas_freq_xlating_polyphase
-    and the ci2 wire path runs the fully fused bytes->channels kernel
-    (`ops/pallas_fir.py`).
-    """
-    monkeypatch.setenv("AIS_TPU_CHAN", "pallas")
-    from ais_tpu.ops.convert import host_bytes
-
-    cfg = WidebandConfig()
-    n48 = cfg.block_len + cfg.core_len
-    rx = WidebandReceiver(cfg, n_in=(n48 - 1) * cfg.decimation + num_taps(cfg))
-    raw = aivdm_payload_to_bytes(PAYLOAD)
-    iq = Scenario(
-        sample_rate=2.4e6,
-        n_samples=rx.n_in,
-        noise=0.004,
-        packets=[
-            ScenarioPacket(raw, 200000, -25e3, phase=0.7),
-            ScenarioPacket(raw, 700000, +25e3, amplitude=0.6,
-                           extra_freq_hz=140.0),
-        ],
-    ).build()
-    pkts = rx.decode(iq)
-    assert [p.nmea for p in pkts] == [SENTENCE_A, SENTENCE_B]
-
-    rx2 = WidebandReceiver(cfg, n_in=rx.n_in)
-    got = rx2.decode_wire(host_bytes(iq, "ci2"), "ci2")
-    assert [p.nmea for p in got] == [SENTENCE_A, SENTENCE_B]
-
-
 def _near_far_scene(n_in, weak_amplitude):
     raw = aivdm_payload_to_bytes(PAYLOAD)
     return Scenario(

@@ -10,7 +10,7 @@ tests/oracle_modulator.py (zero shared code with ais_tpu.tx), so these
 curves are independent validation, not self-parity.
 
 Rows per Eb/N0:
-  default   — the TPU-native chain as shipped (feedforward timing,
+  default   — the chain as shipped (feedforward timing,
               gated AFC, CFAR-assisted burst detection).
   faithful  — the reference-equivalent configuration: D'Andrea PLL
               timing, ungated AFC, fixed 0.9 correlation threshold, no
@@ -182,7 +182,7 @@ def main() -> int:
             "detected bursts; `theory` is coherent-MSK `Q(sqrt(2 Eb/N0))`\n"
             "for context (the discriminator chain is noncoherent and sits\n"
             "several dB off that bound, as expected; MLSE approaches it).\n\n"
-            "Rows: `default` = the shipped TPU-native chain (feedforward\n"
+            "Rows: `default` = the shipped chain (feedforward\n"
             "timing, gated AFC, CFAR-assisted detection);\n"
             "`faithful` = the reference-equivalent configuration (PLL\n"
             "timing, ungated AFC, fixed 0.9 threshold — the gr-ais\n"

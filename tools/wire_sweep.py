@@ -240,8 +240,9 @@ def main() -> int:
     with open(args.out, "w") as f:
         f.write(
             "# Wire-format characterization (generated by tools/wire_sweep.py)\n\n"
-            "The 1-bit wire formats exist because the ingest link, not the\n"
-            "chip, binds end-to-end TPU throughput (ARCHITECTURE.md §5).\n"
+            "The 1-bit wire formats exist for ingest links whose bandwidth,\n"
+            "not the device, would bind end-to-end throughput; whether any\n"
+            "deployment on the GPU needs them is open (ROADMAP C3).\n"
             "This file is the measured basis for the encoder constants and\n"
             "for the dynamic-range caveats quoted next to throughput\n"
             "numbers.\n\n"
